@@ -5,8 +5,8 @@
 // (reference src/rsframe.cc:58-378) and writes PLY clouds with ofstream <<
 // per vertex (src/camera.cc:423-491).  This library replaces both with
 // buffered single-pass code exposed through a C ABI consumed via ctypes —
-// the host-side native runtime of the framework (the TPU compute itself
-// lives in XLA/Pallas).
+// the host-side native runtime of the framework (the device compute itself
+// lives in XLA and native/sor_cuda.cu).
 //
 // Build: `make -C native` -> native/librs_io.so
 

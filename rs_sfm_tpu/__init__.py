@@ -1,6 +1,6 @@
-"""rs_sfm_tpu — TPU-native rolling-shutter-aware differential SfM.
+"""rs_sfm_tpu — rolling-shutter-aware differential SfM in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 C++/Ceres implementation (ThomasZiegler/RS-aware-differential-SfM): given two
 consecutive rolling-shutter frames it estimates relative camera motion
 (linear velocity v, angular velocity w, optional acceleration factor k) with a
@@ -21,7 +21,7 @@ Package layout (maps to SURVEY.md §7 build plan):
   rectify/   z-buffered back-projection scatter, crack fill
   eval/      error metrics + sweep harness (errorMeasure equivalents)
   parallel/  device meshes, shard_map'ed pixel-sharded solver, collectives
-  ops/       TPU-native batched small-matrix linalg + Pallas kernels
+  ops/       batched small-matrix linalg + the fused SOR kernel (CUDA)
   utils/     logging, profiling timers, config
 """
 

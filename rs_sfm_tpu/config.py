@@ -5,14 +5,16 @@ driver (reference src/main.cc:164-176, 302-311) and tolerances inside the
 engine (src/minimal.cc:39-40, src/errorMeasure.cpp:44-45). Here configuration
 is explicit data: a single dataclass threaded through the pipeline.
 
-Dtype policy (TPU-first):
+Dtype policy:
   * Dense per-pixel arrays (images, flow, depth, residuals) are float32 —
-    plenty for pixel-level quantities and fast on the VPU/MXU.
+    plenty for pixel-level quantities.  Their geometric products ask for
+    precision=HIGHEST, so a GPU does not run them in TF32, and the
+    refinement's Gram sums are exact-product reductions (ops.linalg.gram).
   * The tiny-core linear algebra (9x9 null space, 3x3 eigendecomposition,
     6x6 char-polynomial for k, 7x7 reduced Schur system) runs in float64 when
     x64 is enabled, else float32.  These matrices are microscopic, so the
-    emulated-f64 cost on TPU is irrelevant, and the conditioning of the
-    minimal solver benefits (reference uses double throughout).
+    f64 cost is negligible, and the conditioning of the minimal solver
+    benefits (reference uses double throughout).
 
 Call `enable_x64()` before creating any JAX arrays to opt in (the CLI and the
 test-suite do this).
@@ -71,10 +73,6 @@ class PipelineConfig:
     # Early-stop tolerance (Ceres function_tolerance analog); 0 = fixed
     # iteration count (leaner compile: static fori_loop).
     refine_rel_tol: float = 1e-8
-    # "xla" = portable implementation (any dtype, shard_map-ready);
-    # "pallas" = fused TPU kernels (float32, single device).
-    refine_engine: str = "xla"
-    ransac_engine: str = "xla"
     # Multi-start refinement (NOT in the reference; divergence documented in
     # README): refine the top-J RANSAC hypotheses independently and keep the
     # one whose refined model re-scores best (#inliers desc, error asc).
@@ -113,7 +111,7 @@ class PipelineConfig:
     # depth absorbs β(k) almost entirely), so the scan only covers the
     # physically moderate range — starting it at the k≈−1 mirror basin's
     # edge lets f32 noise pick the edge on weakly-observable problems
-    # (measured, tpu_validate).  Widen for extreme-deceleration scenes.
+    # (measured).  Widen for extreme-deceleration scenes.
     k_scan_points: int = 17
     k_scan_min: float = -0.5
     k_scan_max: float = 2.0
@@ -176,10 +174,10 @@ class PipelineConfig:
     # warm-start from the winner.  MEASURED NEGATIVE for its purpose and
     # default off: on the 50-eval stress protocol it changed NO
     # evaluation (mean 0.2990 / med 0.0601 bit-for-bit the no-revote
-    # rows) at +4.6 ms — the trusted mask is curated BY the selected
+    # rows) — the trusted mask is curated BY the selected
     # model, so when pass 1 picks a wrong basin the mask excludes
     # exactly the dissenting pixels and the vote is circular
-    # (TPU_VALIDATION §9, STRESS.md r5 final).  A real fix needs
+    # (STRESS.md r5 final).  A real fix needs
     # model-independent evidence (e.g. per-candidate depth-coherence
     # scoring) — ROADMAP.
     feedback_revote: bool = False
@@ -188,16 +186,15 @@ class PipelineConfig:
     # ALREADY-CONVERGED model and only has to absorb the trusted-mask
     # delta — it needs far fewer than the cold-start budget (VarPro
     # settles in ~10 from RANSAC inits; from a converged warm start it
-    # measures protocol-identical at 8, TPU_VALIDATION §9).
+    # measures protocol-identical at 8, STRESS.md r5).
     feedback_refine_iterations: int = 0
     # Decimated feedback inpainting (flow/feedback.py): run the
     # depth-coherence peeling and push-pull fill from stride-2-decimated
     # anchor planes (anchors keep exact values at the finest level; the
-    # coarse ~50 px-aperture semantics are unchanged).  MEASURED NEGATIVE
-    # on hardware and kept as a documented option (TPU_VALIDATION §9:
-    # 147.7 vs 145.8 ms for the 2-pass production estimation — in-graph
-    # the stride-2 lane relayouts cost what the full-res blurs saved,
-    # the same lesson as the r5 conv-resampling probe).  Default off.
+    # coarse ~50 px-aperture semantics are unchanged).  It measured no
+    # faster on the accelerator this was first built for (its strided
+    # relayouts cost what the full-res blurs saved) and is kept as a
+    # documented option, default off; not measured on a GPU.
     feedback_fast_inpaint: bool = False
     # Fix of the reference's f_x-for-y projection bug (src/rsframe.cc:639).
     # True  -> use f_y for the y coordinate (correct pinhole model).
@@ -210,3 +207,14 @@ class PipelineConfig:
 
 
 DEFAULT_CONFIG = PipelineConfig()
+
+# THE production estimation config: gated by tests/test_fullhd_flow.py,
+# run by chip_smoke.py, benched by bench.py and exercised by the STRESS.md
+# protocol.  4 batched diversity starts for 8 LM iterations, then the vote
+# winner alone to 20; Huber loss (3 px knee); tight-consensus depth export
+# (2 px); two warm-start model-feedback passes of 8 LM iterations each.
+PRODUCTION_CONFIG = PipelineConfig(
+    ransac_trials=256, ransac_tol=0.02, refine_iterations=20,
+    refine_starts=4, refine_winnow_iters=8, refine_rel_tol=0.0,
+    depth_residual_px=2.0, refine_loss_delta_px=3.0, feedback_passes=2,
+    feedback_mode="refine", feedback_refine_iterations=8)

@@ -30,19 +30,16 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from rs_sfm_tpu.data.png import read_png, write_png
 from rs_sfm_tpu.geom.camera import Intrinsics
 
 
 def _imread(path):
-    import imageio.v3 as iio
-
-    return np.asarray(iio.imread(path))
+    return read_png(path)
 
 
 def _imwrite(path, array_uint8):
-    import imageio.v3 as iio
-
-    iio.imwrite(path, array_uint8)
+    write_png(path, array_uint8)
 
 
 def _read_csv_matrix(path) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Procedural JAX synthetic rolling-shutter renderer.
 
-TPU-native replacement for the reference's MATLAB generator
+JAX replacement for the reference's MATLAB generator
 (matlab_synthetic_data/: castle.m → start_generating.m → take_sequence.m),
 which renders a textured mesh once per scanline and keeps only row i.  Here
 the scene is a set of textured rectangles with closed-form ray intersection,
@@ -37,6 +37,10 @@ from rs_sfm_tpu.geom import so3
 from rs_sfm_tpu.geom.camera import Intrinsics
 from rs_sfm_tpu.geom.rspose import beta1, beta2
 from rs_sfm_tpu.ops import linalg
+
+# Per-pixel geometry: a default-precision f32 product may run in TF32 on
+# a GPU, ~1e-3 relative, i.e. pixels at f ≈ 1800.
+_HI = jax.lax.Precision.HIGHEST
 
 
 class Scene(NamedTuple):
@@ -339,13 +343,16 @@ def _intersect(scene: Scene, origin, direction, time=None):
         e1 = scene.edge1[p]
         e2 = scene.edge2[p]
         n = jnp.cross(e1, e2)
-        denom = jnp.einsum("...i,i->...", direction, n)
+        denom = jnp.einsum("...i,i->...", direction, n, precision=_HI)
         safe = jnp.where(jnp.abs(denom) < 1e-12, jnp.ones_like(denom), denom)
-        t = jnp.einsum("...i,i->...", p0 - origin, n) / safe
+        t = jnp.einsum("...i,i->...", p0 - origin, n,
+                       precision=_HI) / safe
         hit_pt = origin + t[..., None] * direction
         rel = hit_pt - p0
-        a = jnp.einsum("...i,i->...", rel, e1) / jnp.dot(e1, e1)
-        b = jnp.einsum("...i,i->...", rel, e2) / jnp.dot(e2, e2)
+        a = (jnp.einsum("...i,i->...", rel, e1, precision=_HI)
+             / jnp.dot(e1, e1, precision=_HI))
+        b = (jnp.einsum("...i,i->...", rel, e2, precision=_HI)
+             / jnp.dot(e2, e2, precision=_HI))
         ok = ((jnp.abs(denom) >= 1e-12) & (t > 1e-3)
               & (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0))
         closer = ok & (t < best_t)
@@ -369,7 +376,8 @@ def _row_poses(r0, t0, v, w, betas):
     """Poses R = R₀(I + β·ŵ), t = t₀ + β·v for a vector of β values."""
     n = betas.shape[0]
     w_b = jnp.broadcast_to(w, (n, 3))
-    r = jnp.einsum("ij,njk->nik", r0, so3.exp_first_order(w_b, scale=betas))
+    r = jnp.einsum("ij,njk->nik", r0, so3.exp_first_order(w_b, scale=betas),
+                   precision=_HI)
     t = t0[None, :] + betas[:, None] * v[None, :]
     return r, t
 
@@ -392,8 +400,9 @@ def _render(scene, intr: Intrinsics, rows, cols, r_rows, t_rows, dtype,
     # camera center o = −R⁻¹t, world direction d = R⁻¹ d_cam (d_cam.z = 1 ⇒
     # the ray parameter equals camera depth).
     r_inv = linalg.gauss_inv(r_rows)  # (H, 3, 3)
-    o = -jnp.einsum("hij,hj->hi", r_inv, t_rows)  # (H, 3)
-    d_world = jnp.einsum("hij,hwj->hwi", r_inv, d_cam)  # (H, W, 3)
+    o = -jnp.einsum("hij,hj->hi", r_inv, t_rows, precision=_HI)  # (H, 3)
+    d_world = jnp.einsum("hij,hwj->hwi", r_inv, d_cam,
+                         precision=_HI)  # (H, W, 3)
     origin = jnp.broadcast_to(o[:, None, :], d_world.shape)
     tgrid = None
     if times is not None:
@@ -664,9 +673,9 @@ def _jpeg_quantize(img, quality: int):
 
     blocks = (x * 255.0 - 128.0).reshape(hh // 8, 8, ww // 8, 8, 3)
     blocks = blocks.transpose(0, 2, 4, 1, 3)      # (BH, BW, 3, 8, 8)
-    coef = jnp.einsum("ij,...jk,lk->...il", cb, blocks, cb)
+    coef = jnp.einsum("ij,...jk,lk->...il", cb, blocks, cb, precision=_HI)
     coef = jnp.round(coef / qb) * qb
-    rec = jnp.einsum("ji,...jk,kl->...il", cb, coef, cb)
+    rec = jnp.einsum("ji,...jk,kl->...il", cb, coef, cb, precision=_HI)
     rec = rec.transpose(0, 3, 1, 4, 2).reshape(hh, ww, 3)
     return jnp.clip((rec + 128.0) / 255.0, 0.0, 1.0)[:h, :w]
 

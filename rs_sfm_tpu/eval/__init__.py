@@ -1,6 +1,6 @@
 """Evaluation: error metrics and the sweep harness.
 
-TPU-native equivalents of the reference's error_measure
+JAX equivalents of the reference's error_measure
 (src/errorMeasure.{h,cpp}) and Camera::meanReprojectionError
 (src/camera.cc:593-691): jitted metrics over full pixel grids, a harness
 driver reproducing the evaluateVelocities protocol, and artifact writers.

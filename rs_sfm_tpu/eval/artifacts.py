@@ -14,9 +14,9 @@ import numpy as np
 
 
 def imwrite(path, arr):
-    import imageio.v3 as iio
+    from rs_sfm_tpu.data.png import write_png
 
-    iio.imwrite(path, arr)
+    write_png(path, arr)
 
 
 def depth_image(depth_map) -> np.ndarray:

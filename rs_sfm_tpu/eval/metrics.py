@@ -9,11 +9,16 @@
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from rs_sfm_tpu.geom import so3
 from rs_sfm_tpu.geom.camera import Intrinsics, pixel_grid, plane_to_space
 from rs_sfm_tpu.geom.rspose import camera_to_world, relocate_poses
+
+# Per-pixel geometry: a default-precision f32 product may run in TF32 on
+# a GPU, ~1e-3 relative, i.e. pixels at f ≈ 1800.
+_HI = jax.lax.Precision.HIGHEST
 
 
 def rotation_error(w_est, w_true):
@@ -26,13 +31,13 @@ def rotation_error(w_est, w_true):
     """
     r_est = jnp.eye(3, dtype=w_est.dtype) + so3.hat(w_est)
     r_true = jnp.eye(3, dtype=w_est.dtype) + so3.hat(w_true)
-    err = jnp.einsum("...ij,...kj->...ik", r_est, r_true)
+    err = jnp.einsum("...ij,...kj->...ik", r_est, r_true, precision=_HI)
     return jnp.linalg.norm(so3.vee(err), axis=-1)
 
 
 def translation_error(v_est, v_true):
     """Angular error between translation directions (src/errorMeasure.cpp:186)."""
-    num = jnp.einsum("...i,...i->...", v_est, v_true)
+    num = jnp.einsum("...i,...i->...", v_est, v_true, precision=_HI)
     den = jnp.linalg.norm(v_est, axis=-1) * jnp.linalg.norm(v_true, axis=-1)
     safe = jnp.where(den == 0.0, jnp.ones_like(den), den)
     return jnp.arccos(jnp.clip(num / safe, -1.0, 1.0))

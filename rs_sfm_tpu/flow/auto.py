@@ -8,7 +8,7 @@ occlusion.  `probe_flow_preset` restores the single-configuration UX with
 a cheap coarse-scale probe run once per pair:
 
   * compute a small plain forward-backward flow at 1/8 resolution
-    (135x240 at full-HD — a few ms on TPU);
+    (135x240 at full-HD);
   * occlusion fraction of the FB test: photometric corruption makes the
     plain flow inconsistent (measured castle_photo 0.84) and movers +
     heavy occlusion flag directly (stress 0.62), while clean scenes stay

@@ -1,7 +1,7 @@
 """Dense optical flow: pyramidal coarse-to-fine variational estimation.
 
 Replaces the reference's OpenCV DeepFlow call (src/camera.cc:253-277) with a
-TPU-native implementation of the same family of algorithm (DeepFlow =
+JAX implementation of the same family of algorithm (DeepFlow =
 variational energy in a coarse-to-fine pyramid + a matching term; here the
 variational core, structure-texture preprocessing, and warping pyramid):
 
@@ -9,8 +9,8 @@ variational core, structure-texture preprocessing, and warping pyramid):
   * at each level, several warping iterations: bilinearly warp I2 by the
     current flow, linearize the brightness-constancy term, and minimize
       E = Σ ψ(Ix·du + Iy·dv + It) + λ‖∇(u+du)‖²
-    with fixed-point (lagged-diffusivity) Jacobi sweeps — pure stencil
-    (roll) and elementwise ops that fuse into a handful of VPU passes;
+    with fixed-point (lagged-diffusivity) red-black SOR sweeps — pure
+    stencil and elementwise ops (fused on a GPU by ops/sor_cuda.py);
   * 3x3 median filtering of the flow between warps (the standard outlier
     cleanup), via a sorting network on rolled neighbors;
   * everything fixed-shape and jittable; the pyramid loop unrolls at trace
@@ -34,12 +34,9 @@ class DenseFlowConfig(NamedTuple):
     levels: int = 6            # pyramid levels (auto-capped by image size)
     warps: int = 3             # warping iterations per level
     iters: int = 20            # red-black SOR sweeps per warp
-    # Cheaper settings for the NON-finest levels (0 = same as warps/iters).
-    # Coarse levels only initialize the continuation — their solution is
-    # upsampled and re-solved — so fewer warps/sweeps there trade no
-    # measurable finest-level EPE for a large cut of the pyramid-tail
-    # wall-clock (measured r4: the 5 coarse levels cost ~40% of the
-    # full-HD forward pass at equal settings).
+    # Separate settings for the NON-finest levels (0 = same as
+    # warps/iters).  Coarse levels only initialize the continuation —
+    # their solution is upsampled and re-solved.
     warps_coarse: int = 0
     iters_coarse: int = 0
     omega: float = 1.85        # SOR over-relaxation factor
@@ -55,7 +52,7 @@ class DenseFlowConfig(NamedTuple):
     #   (I − μ) / √(σ² + lcn²),  μ/σ² = local (double-5-tap) mean/variance.
     # Invariant to any smooth gain AND offset field (exposure, vignetting)
     # — the census property — while keeping the data term a plain
-    # brightness constancy, so the fused Pallas SOR kernel and the
+    # brightness constancy, so the fused SOR kernel and the
     # discrete-matching stages work unchanged.  This is the production
     # robust preprocessing; `lcn` is the contrast floor (≈ noise level).
     lcn: float = 0.0  # 0 = off; typical 0.03-0.08 for real imagery
@@ -72,7 +69,7 @@ class DenseFlowConfig(NamedTuple):
     # contrast-normalized patches (gain-invariant) under this flag.  On
     # photometrically clean pairs the aligned ratio is ≈1, so the mode is
     # a no-op — unlike census/LCN it costs no accuracy on clean scenes,
-    # and it adds no data-term channels (fused Pallas SOR compatible).
+    # and it adds no data-term channels (fused SOR kernel compatible).
     gain_correct: bool = False
     # Discrete matching (DeepFlow's matching-term role):
     #  - exhaustive ±init_search_radius search at the coarsest level;
@@ -89,11 +86,10 @@ class DenseFlowConfig(NamedTuple):
     # Above refine_max_size (every non-finest level), run the warp-local
     # search at this smaller radius instead (0 = off) — the DIS-style
     # inverse-search role for fine levels.  Measured at full-HD
-    # (results/flow_variants.json): with the warp residual budget at 16 it
-    # buys nothing (the variational term tracks fine-level corrections
-    # once warping is exact) and costs ~45% wall-clock, so it defaults
-    # off; it remains available for scenes with very fast fine-scale
-    # motion.
+    # (results/flow_variants.json) it buys no accuracy (the variational
+    # term tracks fine-level corrections) and adds a (2r+1)² warp scan at
+    # near-full resolution, so it defaults off; it remains available for
+    # scenes with very fast fine-scale motion.
     refine_fine_radius: int = 0
     # Ambiguity (ratio) test for the discrete matching stages (0 = off).
     # On REPETITIVE texture every period-shifted displacement is an
@@ -114,41 +110,15 @@ class DenseFlowConfig(NamedTuple):
     # imagery with exposure/vignetting changes.
     census_weight: float = 0.0
     census_sigma: float = 0.04  # soft-sign scale: tanh-like d/√(d²+σ²)
-    # SOR sweep engine: "xla" (portable rolls; any shape/term) or "pallas"
-    # (fused multi-sweep VMEM-resident kernel, ops/pallas/sor.py; bit-exact
-    # iteration semantics, used automatically only at levels whose shape
-    # qualifies and with the census term off).
-    sor_engine: str = "xla"
+    # SOR sweep engine: "auto" runs the fused multi-sweep CUDA kernel
+    # (ops/sor_cuda.py) on a GPU at the levels it supports and the XLA
+    # loop elsewhere; "xla" always runs the XLA loop (the reference).
+    sor_engine: str = "auto"
     # Brightness-constancy weight.  Set to 0 (with gamma_grad=0) to run a
     # census-only data term — the robust configuration for real imagery
     # with exposure/vignetting/gamma changes, where raw brightness (and
     # gradient magnitude) constancy actively mislead the solver.
     brightness_weight: float = 1.0
-    # Warp engine: "xla" (gather; portable, exact) or "pallas" (blocked
-    # shift-select kernel, ~100x faster per warp on TPU at full-HD — XLA
-    # lowers per-pixel gathers to a slow path).  Pallas is exact for
-    # displacements within ±warp_radius of the block consensus; beyond
-    # (motion discontinuities inside a block) samples clamp to the window
-    # edge and the robust data term absorbs the error.
-    warp_engine: str = "xla"
-    # Residual budget of the Pallas warp: full-HD RS flow fields carry
-    # 30-45 px spreads across a 40x128 block at depth discontinuities
-    # (measured, results/flow_variants.json: radius 6 cost ~0.7 px of
-    # median EPE on clean full-HD; at 16 the RESULTING FLOW matches the
-    # exact-XLA-warp flow to 0.03 px median EPE).  Note this is a
-    # median-EPE equivalence of the flow output, not per-sample warp
-    # exactness: on smooth in-budget flow the warp itself is bit-exact
-    # in-view (TPU_VALIDATION §3), but boundary-clamp interactions next
-    # to out-of-view regions can differ (up to ~0.5 intensity on a
-    # handful of pixels; scripts/probe_warp.py) and are absorbed by the
-    # robust data term.  r5: default 16 -> 24 — the mover/occluder scene
-    # carries >16 px residual spreads at its discontinuity blocks, and
-    # the clamped samples CASCADE through the variational solve on the
-    # plain preset (TPU, stress scene: est err_v 0.6155 at radius 16 vs
-    # 0.0576 at 24; EPE med 6.7 -> 5.9 — /tmp probe transcribed in
-    # STRESS.md r5).  The LCN robust preset masked this by chance (its
-    # r4 protocol numbers were healthy); 24 covers both.
-    warp_radius: int = 24
     # Forward-backward occlusion test (flow_forward_backward): pixel x is
     # flagged when |w_f(x) + w_b(x+w_f)|² > occ_rel·(|w_f|²+|w_b|²) +
     # occ_abs (Sundaram-Brox thresholds).
@@ -168,9 +138,8 @@ class DenseFlowConfig(NamedTuple):
     # log2(scale) pyramid downsamples).  The backward field is only
     # consumed by the forward-backward occlusion test — a
     # morphological-scale signal — so computing it on 2x-downsampled
-    # frames (1/4 the cost, ~40% off the fb pair wall-clock at full-HD)
-    # leaves the mask quality essentially unchanged (measured:
-    # results/stress_fullhd.json occ stats).
+    # frames (1/4 the pixels) leaves the mask quality essentially
+    # unchanged (measured: results/stress_fullhd.json occ stats).
     backward_scale: int = 1
     # Warp-local search realization (r5):
     #   True — "shifted" mode: warp I2 by the incoming flow ONCE, then
@@ -251,13 +220,11 @@ def _downsample(x):
 
 
 def _up2(x):
-    """Exact 2x bilinear upsample of a (H, W) plane on the VPU.
+    """Exact 2x bilinear upsample of a (H, W) plane.
 
-    jax.image.resize costs ~3.3 ms PER CALL on the TPU regardless of size
-    (measured, results/profile_r4c — a gather-lowered path); the pyramid
-    pays ~10 such calls per forward/backward pair.  This interleave
-    formulation (even samples copy, odd samples average with the
-    edge-clamped next neighbor) is a handful of fused elementwise ops.
+    An interleave formulation (even samples copy, odd samples average
+    with the edge-clamped next neighbor): a handful of fused elementwise
+    ops instead of jax.image.resize's general resampling.
     """
     h, w = x.shape
     # Half-pixel-center convention (matches jax.image.resize bilinear):
@@ -334,17 +301,6 @@ def _gradients(img):
     return gx, gy
 
 
-def _warp_cfg(img, flow, cfg):
-    """Warp dispatch: the Pallas blocked kernel where it pays off (2D
-    image, enough pixels to tile), the XLA gather otherwise."""
-    if (cfg.warp_engine == "pallas" and img.ndim == 2
-            and min(img.shape) >= 48):
-        from rs_sfm_tpu.ops.pallas.warp import bilinear_warp
-
-        return bilinear_warp(img, flow, radius=cfg.warp_radius)
-    return _warp(img, flow)
-
-
 _CENSUS_OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
                    (0, 1), (1, -1), (1, 0), (1, 1))
 
@@ -389,19 +345,8 @@ def _median3(x):
     return v[4]
 
 
-def _median_flow(flow, cfg):
-    """3x3 median of both flow planes; fused Pallas kernel on the TPU
-    production engines (the XLA shift network costs 3.2 ms/plane at
-    full-HD — measured, ops/pallas/median.py), XLA fallback otherwise."""
-    h, w = flow.shape[:2]
-    if cfg is not None and (cfg.sor_engine == "pallas"
-                            or cfg.warp_engine == "pallas"):
-        from rs_sfm_tpu.ops.pallas import median as pmedian
-
-        if pmedian.supported(h, w):
-            planes = pmedian.median3_planes(
-                jnp.stack([flow[..., 0], flow[..., 1]]))
-            return jnp.stack([planes[0], planes[1]], axis=-1)
+def _median_flow(flow):
+    """3x3 median of both flow planes."""
     return jnp.stack([_median3(flow[..., 0]), _median3(flow[..., 1])],
                      axis=-1)
 
@@ -505,7 +450,7 @@ def _coarse_init(i1, i2, radius: int, cfg=None, prior=None):
     """Exhaustive integer-displacement search at the coarsest level.
 
     For every pixel, pick the displacement in [−radius, radius]² minimizing
-    the 5x5 box-filtered squared difference — the TPU-native stand-in for
+    the 5x5 box-filtered squared difference — the stand-in for
     DeepFlow's matching term (dense HOG matches).  Scanned over offsets
     (an unrolled loop of static rolls makes XLA compile times explode);
     the shifted window comes from a dynamic slice of the edge-padded
@@ -539,21 +484,19 @@ def _discrete_refine(i1, i2, flow, radius: int, cfg, prior=None):
     and keep the best box-filtered SSD per pixel.
 
     Two realizations (cfg.refine_shifted):
-      * shifted (default since r5): warp I2 by `flow` ONCE, then each
-        candidate's cost comes from an integer SHIFT of the warped plane
-        — cost(x, d) tests displacement flow(x+d)+d instead of
-        flow(x)+d (DIS-inverse-search semantics; equal wherever flow is
-        locally smooth).  Removes the per-candidate Pallas warp that
-        made the scan the pyramid tail's cost driver (profile_r5b:
-        10.7 ms at 135x240 radius 4).
-      * exact: per-candidate re-warp (the r4 behavior).
+      * shifted: warp I2 by `flow` ONCE, then each candidate's cost
+        comes from an integer SHIFT of the warped plane — cost(x, d)
+        tests displacement flow(x+d)+d instead of flow(x)+d
+        (DIS-inverse-search semantics; equal wherever flow is locally
+        smooth), with no per-candidate warp.
+      * exact (default): per-candidate re-warp.
     Returns (flow, ambiguous).
     """
     i1m, i2m = _match_planes(i1, i2, cfg)
     side = 2 * radius + 1
 
     if cfg.refine_shifted:
-        w0 = _warp_cfg(i2m, flow, cfg)
+        w0 = _warp(i2m, flow)
         padded = jnp.pad(w0, radius, mode="edge")
 
         def cost_of(dy, dx):
@@ -566,7 +509,7 @@ def _discrete_refine(i1, i2, flow, radius: int, cfg, prior=None):
             cand = flow + jnp.stack(
                 [jnp.full(i1m.shape, du, i1m.dtype),
                  jnp.full(i1m.shape, dv, i1m.dtype)], axis=-1)
-            return _box5((_warp_cfg(i2m, cand, cfg) - i1m) ** 2)
+            return _box5((_warp(i2m, cand) - i1m) ** 2)
 
     def cand_of(dy, dx):
         du = (dx - radius).astype(i1m.dtype)
@@ -578,12 +521,108 @@ def _discrete_refine(i1, i2, flow, radius: int, cfg, prior=None):
     best, second, amb = _match_scan(i1m, cost_of, cand_of, side,
                                     prior=prior, radius=radius,
                                     ratio=cfg.match_ratio, fallback=flow)
-    return _median_flow(best, cfg), second, amb
+    return _median_flow(best), second, amb
 
 
-def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *,
-                 finest: bool = True, data_mask=None):
-    """Warping + fixed-point Jacobi solves at one pyramid level.
+class Linearised(NamedTuple):
+    """Planes of the linearised data term at one warp (all (H, W)).
+
+    (u0, v0) is the flow the warp started from; c, cgx, cgy are the
+    constant parts of the brightness and gradient residuals written in
+    absolute flow: r = c + ix·u + iy·v."""
+    ix: jax.Array
+    iy: jax.Array
+    it: jax.Array
+    ixx: jax.Array
+    ixy: jax.Array
+    iyy: jax.Array
+    gtx: jax.Array
+    gty: jax.Array
+    u0: jax.Array
+    v0: jax.Array
+    c: jax.Array
+    cgx: jax.Array
+    cgy: jax.Array
+
+
+def _navg(z):
+    """4-neighbour mean.  Neumann boundary: the missing neighbor beyond an
+    image edge is the edge pixel itself (edge-clamped shifts)."""
+    return (_shift(z, 1, 0) + _shift(z, -1, 0)
+            + _shift(z, 1, 1) + _shift(z, -1, 1)) * 0.25
+
+
+def _point_solve(t: Linearised, u, v, ubar, vbar, cfg: DenseFlowConfig,
+                 census=None):
+    """Pointwise 2x2 solve of the linearised data term given the current
+    neighbor averages, with lagged-diffusivity (Charbonnier') weights.
+    census: optional (du, dv) -> (a11, a12, a22, b1, b2) increments."""
+    lam = cfg.smoothness
+    eps2 = cfg.eps * cfg.eps
+    du = u - t.u0
+    dv = v - t.v0
+    r = t.ix * du + t.iy * dv + t.it
+    wd = cfg.brightness_weight / jnp.sqrt(r * r + eps2)
+    rgx = t.gtx + t.ixx * du + t.ixy * dv
+    rgy = t.gty + t.ixy * du + t.iyy * dv
+    wg = cfg.gamma_grad / jnp.sqrt(rgx * rgx + rgy * rgy + eps2)
+    a11 = lam + wd * t.ix * t.ix + wg * (t.ixx * t.ixx + t.ixy * t.ixy)
+    a12 = wd * t.ix * t.iy + wg * (t.ixx * t.ixy + t.ixy * t.iyy)
+    a22 = lam + wd * t.iy * t.iy + wg * (t.ixy * t.ixy + t.iyy * t.iyy)
+    b1 = (lam * ubar - wd * t.ix * t.c
+          - wg * (t.ixx * t.cgx + t.ixy * t.cgy))
+    b2 = (lam * vbar - wd * t.iy * t.c
+          - wg * (t.ixy * t.cgx + t.iyy * t.cgy))
+    if census is not None:
+        c11, c12, c22, cb1, cb2 = census(du, dv)
+        a11 = a11 + c11
+        a12 = a12 + c12
+        a22 = a22 + c22
+        b1 = b1 - cb1
+        b2 = b2 - cb2
+    det = a11 * a22 - a12 * a12
+    det = jnp.where(jnp.abs(det) < 1e-12, 1e-12, det)
+    u_new = (a22 * b1 - a12 * b2) / det
+    v_new = (a11 * b2 - a12 * b1) / det
+    return u_new, v_new
+
+
+def sor_sweeps_xla(t: Linearised, iters: int, cfg: DenseFlowConfig,
+                   census=None):
+    """`iters` red-black Gauss-Seidel sweeps with over-relaxation, starting
+    from (u0, v0): each color updates against the other's fresh values —
+    ~4x fewer sweeps than Jacobi for the same residual.  The reference
+    for the fused kernel in ops/sor_cuda.py."""
+    ys = jnp.arange(t.u0.shape[0])[:, None]
+    xs = jnp.arange(t.u0.shape[1])[None, :]
+    checker = ((ys + xs) % 2).astype(t.u0.dtype)
+
+    def sweep(_, uv):
+        u, v = uv
+        for color in (0.0, 1.0):
+            u_s, v_s = _point_solve(t, u, v, _navg(u), _navg(v), cfg,
+                                    census)
+            mask = jnp.where(checker == color, cfg.omega, 0.0)
+            u = u + mask * (u_s - u)
+            v = v + mask * (v_s - v)
+        return u, v
+
+    return jax.lax.fori_loop(0, iters, sweep, (t.u0, t.v0))
+
+
+def _use_sor_kernel(cfg: DenseFlowConfig, masked: bool) -> bool:
+    """The fused kernel covers the plain data term on a GPU; the census
+    term and the anchored pass's data mask stay on the XLA loop."""
+    if cfg.sor_engine == "xla" or cfg.census_weight > 0.0 or masked:
+        return False
+    if cfg.sor_engine != "auto":
+        raise ValueError(f"unknown sor_engine {cfg.sor_engine!r}")
+    return jax.default_backend() == "gpu"
+
+
+def _linearise(i1, i2w, flow, data_mask=None) -> Linearised:
+    """Linearised brightness and gradient-constancy (Brox) terms of the
+    warped pair around `flow`.
 
     data_mask: optional (H, W) float in {0, 1} — pixels with 0 get NO
     data term (all 8 linearization coefficient planes zeroed), so the
@@ -591,139 +630,95 @@ def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *,
     there: anchored interpolation from the mask-1 pixels (the
     cfg.anchor_ambiguous pass, flow/relock.py).
     """
-    lam = cfg.smoothness
+    g1x, g1y = _gradients(i1)
+    ix, iy = _gradients(i2w)
+    it = i2w - i1
+    # Second derivatives of the warped image linearize the gradient
+    # residuals.
+    g2x, g2y = ix, iy
+    gtx = g2x - g1x
+    gty = g2y - g1y
+    ixx, ixy = _gradients(g2x)
+    _, iyy = _gradients(g2y)
+    u0 = flow[..., 0]
+    v0 = flow[..., 1]
+    c = it - ix * u0 - iy * v0
+    cgx = gtx - ixx * u0 - ixy * v0
+    cgy = gty - ixy * u0 - iyy * v0
+    if data_mask is not None:
+        ix = ix * data_mask
+        iy = iy * data_mask
+        c = c * data_mask
+        ixx = ixx * data_mask
+        ixy = ixy * data_mask
+        iyy = iyy * data_mask
+        cgx = cgx * data_mask
+        cgy = cgy * data_mask
+    return Linearised(ix, iy, it, ixx, ixy, iyy, gtx, gty, u0, v0,
+                      c, cgx, cgy)
+
+
+def _census_term(i1, i2w, flow, cfg: DenseFlowConfig, data_mask=None):
+    """(du, dv) -> the census channels' increments to the 2x2 system."""
     eps2 = cfg.eps * cfg.eps
+    cen1 = _census_channels(i1, cfg.census_sigma)
+    cen2w = _census_channels(i2w, cfg.census_sigma)
+    cjx, cjy = _gradients(cen2w)       # (8, H, W)
+    cct = cen2w - cen1                  # temporal census residual
+    ccc = cct - cjx * flow[..., 0] - cjy * flow[..., 1]  # constant part
+    if data_mask is not None:
+        cjx = cjx * data_mask
+        cjy = cjy * data_mask
+        ccc = ccc * data_mask
+
+    def census(du, dv):
+        # Per-channel Charbonnier weights on the 8 census residuals.
+        rc = cjx * du + cjy * dv + cct
+        wc = cfg.census_weight / jnp.sqrt(rc * rc + eps2)
+        return (jnp.sum(wc * cjx * cjx, axis=0),
+                jnp.sum(wc * cjx * cjy, axis=0),
+                jnp.sum(wc * cjy * cjy, axis=0),
+                jnp.sum(wc * cjx * ccc, axis=0),
+                jnp.sum(wc * cjy * ccc, axis=0))
+
+    return census
+
+
+def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *,
+                 finest: bool = True, data_mask=None):
+    """Warping + red-black SOR solves at one pyramid level (data_mask: see
+    _linearise)."""
     warps = cfg.warps if finest or cfg.warps_coarse <= 0 else \
         cfg.warps_coarse
     iters = cfg.iters if finest or cfg.iters_coarse <= 0 else \
         cfg.iters_coarse
 
-    g1x, g1y = _gradients(i1)
+    if cfg.gain_correct:
+        b1 = _gauss_blur(_gauss_blur(_gauss_blur(_gauss_blur(i1))))
     for _ in range(warps):
-        i2w = _warp_cfg(i2, flow, cfg)
+        with jax.named_scope("flow_warp"):
+            i2w = _warp(i2, flow)
         if cfg.gain_correct:
             # Aligned-pair gain refinement: the residual illumination field
             # at this level's grid scale (clipped so true intensity
             # differences — movers, occlusions — are not erased).
-            b1 = _gauss_blur(_gauss_blur(_gauss_blur(_gauss_blur(i1))))
             b2 = _gauss_blur(_gauss_blur(_gauss_blur(_gauss_blur(i2w))))
             i2w = i2w * jnp.clip((b1 + 1e-2) / (b2 + 1e-2), 0.7, 1.4)
-        ix, iy = _gradients(i2w)
-        it = i2w - i1
-        # Gradient constancy (Brox term): second derivatives of the warped
-        # image linearize the gradient residuals.
-        g2x, g2y = _gradients(i2w)
-        gtx = g2x - g1x
-        gty = g2y - g1y
-        ixx, ixy = _gradients(g2x)
-        _, iyy = _gradients(g2y)
+        with jax.named_scope("flow_linearise"):
+            lin = _linearise(i1, i2w, flow, data_mask)
+            census = (_census_term(i1, i2w, flow, cfg, data_mask)
+                      if cfg.census_weight > 0.0 else None)
+        with jax.named_scope("flow_sor"):
+            if _use_sor_kernel(cfg, data_mask is not None):
+                from rs_sfm_tpu.ops import sor_cuda
 
-        u0 = flow[..., 0]
-        v0 = flow[..., 1]
-        # Constant parts of the linearized residuals (written in terms of
-        # absolute flow (u, v) with du = u − u0): r = c + Ix·u + Iy·v.
-        c = it - ix * u0 - iy * v0
-        cgx = gtx - ixx * u0 - ixy * v0
-        cgy = gty - ixy * u0 - iyy * v0
-
-        if data_mask is not None:
-            ix = ix * data_mask
-            iy = iy * data_mask
-            c = c * data_mask
-            ixx = ixx * data_mask
-            ixy = ixy * data_mask
-            iyy = iyy * data_mask
-            cgx = cgx * data_mask
-            cgy = cgy * data_mask
-
-        if cfg.census_weight > 0.0:
-            cen1 = _census_channels(i1, cfg.census_sigma)
-            cen2w = _census_channels(i2w, cfg.census_sigma)
-            cjx, cjy = _gradients(cen2w)       # (8, H, W)
-            cct = cen2w - cen1                  # temporal census residual
-            ccc = cct - cjx * u0 - cjy * v0     # constant part
-            if data_mask is not None:
-                cjx = cjx * data_mask
-                cjy = cjy * data_mask
-                ccc = ccc * data_mask
-
-        ys = jnp.arange(i1.shape[0])[:, None]
-        xs = jnp.arange(i1.shape[1])[None, :]
-        checker = ((ys + xs) % 2).astype(i1.dtype)
-        omega = cfg.omega
-
-        def point_solve(u, v):
-            """Pointwise 2x2 solve given the current neighbor averages."""
-            du = u - u0
-            dv = v - v0
-            # Lagged-diffusivity (Charbonnier') weights.
-            r = ix * du + iy * dv + it
-            wd = cfg.brightness_weight / jnp.sqrt(r * r + eps2)
-            rgx = gtx + ixx * du + ixy * dv
-            rgy = gty + ixy * du + iyy * dv
-            wg = cfg.gamma_grad / jnp.sqrt(rgx * rgx + rgy * rgy + eps2)
-
-            def navg(z):
-                # Neumann boundary: the missing neighbor beyond an image
-                # edge is the edge pixel itself (edge-clamped shifts).
-                return (_shift(z, 1, 0) + _shift(z, -1, 0)
-                        + _shift(z, 1, 1) + _shift(z, -1, 1)) * 0.25
-
-            ubar = navg(u)
-            vbar = navg(v)
-            a11 = lam + wd * ix * ix + wg * (ixx * ixx + ixy * ixy)
-            a12 = wd * ix * iy + wg * (ixx * ixy + ixy * iyy)
-            a22 = lam + wd * iy * iy + wg * (ixy * ixy + iyy * iyy)
-            b1 = (lam * ubar - wd * ix * c
-                  - wg * (ixx * cgx + ixy * cgy))
-            b2 = (lam * vbar - wd * iy * c
-                  - wg * (ixy * cgx + iyy * cgy))
-            if cfg.census_weight > 0.0:
-                # Per-channel Charbonnier weights on the 8 census residuals.
-                rc = cjx * du + cjy * dv + cct
-                wc = cfg.census_weight / jnp.sqrt(rc * rc + eps2)
-                a11 = a11 + jnp.sum(wc * cjx * cjx, axis=0)
-                a12 = a12 + jnp.sum(wc * cjx * cjy, axis=0)
-                a22 = a22 + jnp.sum(wc * cjy * cjy, axis=0)
-                b1 = b1 - jnp.sum(wc * cjx * ccc, axis=0)
-                b2 = b2 - jnp.sum(wc * cjy * ccc, axis=0)
-            det = a11 * a22 - a12 * a12
-            det = jnp.where(jnp.abs(det) < 1e-12, 1e-12, det)
-            u_new = (a22 * b1 - a12 * b2) / det
-            v_new = (a11 * b2 - a12 * b1) / det
-            return u_new, v_new
-
-        def sor(_, uv):
-            """Red-black Gauss-Seidel with over-relaxation: each color
-            updates against the other's fresh values — ~4x fewer sweeps
-            than Jacobi for the same residual."""
-            u, v = uv
-            for color in (0.0, 1.0):
-                u_s, v_s = point_solve(u, v)
-                mask = jnp.where(checker == color, omega, 0.0)
-                u = u + mask * (u_s - u)
-                v = v + mask * (v_s - v)
-            return u, v
-
-        use_pallas_sor = False
-        if cfg.sor_engine == "pallas":
-            from rs_sfm_tpu.ops.pallas import sor as psor
-
-            use_pallas_sor = psor.supported(i1.shape[0], i1.shape[1],
-                                            cfg.census_weight)
-        if use_pallas_sor:
-            coef = jnp.stack([ix, iy, c, ixx, ixy, iyy, cgx, cgy])
-            u, v = psor.sor_sweeps_pallas(
-                coef, flow[..., 0], flow[..., 1],
-                iters=iters, omega=float(cfg.omega), lam=float(lam),
-                eps2=float(eps2), wbr=float(cfg.brightness_weight),
-                wgrad=float(cfg.gamma_grad))
-        else:
-            u, v = jax.lax.fori_loop(0, iters, sor,
-                                     (flow[..., 0], flow[..., 1]))
+                u, v = sor_cuda.sor_sweeps(lin, iters, cfg)
+            else:
+                u, v = sor_sweeps_xla(lin, iters, cfg, census=census)
         flow = jnp.stack([u, v], axis=-1)
         if cfg.median:
-            flow = _median_flow(flow, cfg)
+            with jax.named_scope("flow_median"):
+                flow = _median_flow(flow)
     return flow
 
 
@@ -747,6 +742,11 @@ def _upsample_mask(mask, shape):
 @functools.partial(jax.jit, static_argnames=("cfg", "has_prior"))
 def _dense_flow_aux(image1, image2, cfg: DenseFlowConfig, prior=None,
                     has_prior: bool = False):
+    with jax.named_scope("flow_pyramid"):
+        return _dense_flow_levels(image1, image2, cfg, prior, has_prior)
+
+
+def _dense_flow_levels(image1, image2, cfg, prior, has_prior):
     i1 = _to_gray(jnp.asarray(image1))
     i2 = _to_gray(jnp.asarray(image2))
     if cfg.lcn > 0.0:
@@ -790,8 +790,10 @@ def _dense_flow_aux(image1, image2, cfg: DenseFlowConfig, prior=None,
     #                  that flagged it ambiguous (coarser scales see the
     #                  period the fine windows cannot contain)
     if cfg.init_search_radius > 0:
-        flow, alt_c, amb_lv = _coarse_init(
-            p1[-1], p2[-1], cfg.init_search_radius, cfg, prior=priors[-1])
+        with jax.named_scope("flow_match"):
+            flow, alt_c, amb_lv = _coarse_init(
+                p1[-1], p2[-1], cfg.init_search_radius, cfg,
+                prior=priors[-1])
         amb_full = _upsample_mask(amb_lv, (h, w))
         alt_full = jnp.where(amb_full[..., None],
                              _upsample_flow(alt_c, (h, w)),
@@ -811,9 +813,10 @@ def _dense_flow_aux(image1, image2, cfg: DenseFlowConfig, prior=None,
             else:
                 radius = cfg.refine_fine_radius
             if radius > 0:
-                flow, alt, amb = _discrete_refine(p1[lvl], p2[lvl], flow,
-                                                  radius, cfg,
-                                                  prior=priors[lvl])
+                with jax.named_scope("flow_match"):
+                    flow, alt, amb = _discrete_refine(
+                        p1[lvl], p2[lvl], flow, radius, cfg,
+                        prior=priors[lvl])
                 amb_up = _upsample_mask(amb, (h, w))
                 amb_full = amb_full | amb_up
                 amb_lv = amb if amb_lv is None else (amb_lv | amb)
@@ -905,10 +908,15 @@ def _flow_fb_jit(image1, image2, cfg, prior, _has_prior):
             image2, image1, cfg,
             -jnp.asarray(prior, fw.dtype) if _has_prior else None,
             has_prior=_has_prior).flow
-    # Backward flow sampled at x + w_f(x), channel-wise through the
-    # configured warp engine.
-    bw_at_fw = jnp.stack([_warp_cfg(bw[..., 0], fw, cfg),
-                          _warp_cfg(bw[..., 1], fw, cfg)], axis=-1)
+    with jax.named_scope("fb_occlusion"):
+        return _fb_occlusion(image1, image2, cfg, fw_aux, bw)
+
+
+def _fb_occlusion(image1, image2, cfg, fw_aux, bw):
+    fw = fw_aux.flow
+    # Backward flow sampled at x + w_f(x), channel-wise.
+    bw_at_fw = jnp.stack([_warp(bw[..., 0], fw),
+                          _warp(bw[..., 1], fw)], axis=-1)
     rt = fw + bw_at_fw        # round-trip residual
     sq = jnp.sum(rt * rt, axis=-1)
     mag = (jnp.sum(fw * fw, axis=-1)
@@ -917,7 +925,7 @@ def _flow_fb_jit(image1, image2, cfg, prior, _has_prior):
     if cfg.occ_photo > 0.0:
         n1 = _local_contrast_norm(_to_gray(jnp.asarray(image1)), 0.05)
         n2 = _local_contrast_norm(_to_gray(jnp.asarray(image2)), 0.05)
-        n2w = _warp_cfg(n2, fw, cfg)
+        n2w = _warp(n2, fw)
         occ = occ | (jnp.abs(n2w - n1) > cfg.occ_photo)
     return FlowWithOcclusion(flow=fw, backward=bw, occlusion=occ,
                              ambiguous=fw_aux.ambiguous,

@@ -54,13 +54,7 @@ class FeedbackResult(NamedTuple):
 
 
 def _up2_to(x, shape):
-    """2x bilinear upsample cropped to the parent level's shape.
-
-    Measured BOTH ways on hardware (results/profile_r5d.json): the
-    resize-based feedback pass runs 99.3 ms, the _up2-interleave variant
-    114.1 ms — in this graph the gather-lowered resize fuses better than
-    the lane-interleave, the opposite of the standalone comparison, so
-    resize stays."""
+    """2x bilinear upsample cropped to the parent level's shape."""
     return jax.image.resize(x, shape, method="bilinear")
 
 

@@ -17,6 +17,10 @@ import jax.numpy as jnp
 
 from rs_sfm_tpu.geom.camera import Intrinsics, pixel_grid, space_to_plane
 
+# Per-pixel geometry: a default-precision f32 product may run in TF32 on
+# a GPU, ~1e-3 relative, i.e. pixels at f ≈ 1800.
+_HI = jax.lax.Precision.HIGHEST
+
 
 def true_flow(unproj1, poses2_r, poses2_t, intr: Intrinsics,
               use_fy: bool = True, subscanline: bool = True):
@@ -48,7 +52,8 @@ def true_flow(unproj1, poses2_r, poses2_t, intr: Intrinsics,
     grid = pixel_grid(h, w_cols, dtype=dtype)
 
     def project(r_i, t_i):
-        cam = jnp.einsum("ij,hwj->hwi", r_i, unproj1) + t_i  # (H, W, 3)
+        cam = jnp.einsum("ij,hwj->hwi", r_i, unproj1,
+                         precision=_HI) + t_i  # (H, W, 3)
         return space_to_plane(cam, intr, use_fy=use_fy)      # (H, W, 2)
 
     def body(carry, pose):

@@ -1,6 +1,6 @@
 """Geometry core: SO(3), pinhole camera model, RS per-scanline pose model.
 
-TPU-native replacement for the reference's L1 layer (Scanline/RsFrame,
+JAX replacement for the reference's L1 layer (Scanline/RsFrame,
 reference src/scanline.h, src/rsframe.h): instead of per-scanline objects,
 poses are dense arrays (H, 3, 3) / (H, 3) and every transform is a pure
 vmappable function over pixel/scanline batches.

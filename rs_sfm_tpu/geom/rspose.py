@@ -17,9 +17,14 @@ scanlines at normalized times 1 + γ·i/H via β₂).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from rs_sfm_tpu.geom import so3
+
+# Per-pixel geometry: a default-precision f32 product may run in TF32 on
+# a GPU, ~1e-3 relative, i.e. pixels at f ≈ 1800.
+_HI = jax.lax.Precision.HIGHEST
 
 
 def beta1(row, rows, gamma, k):
@@ -61,13 +66,13 @@ def scanline_poses(v, w, k, rows, gamma, dtype=None):
 
 def world_to_camera(points, r, t):
     """X_cam = R X_world + t; broadcasts (..., 3) with (..., 3, 3)/(..., 3)."""
-    return jnp.einsum("...ij,...j->...i", r, points) + t
+    return jnp.einsum("...ij,...j->...i", r, points, precision=_HI) + t
 
 
 def camera_to_world(points, r, t):
     """X_world = Rᵀ (X_cam - t) (reference cameraToWorldFrame,
     src/rsframe.cc:712-736)."""
-    return jnp.einsum("...ji,...j->...i", r, points - t)
+    return jnp.einsum("...ji,...j->...i", r, points - t, precision=_HI)
 
 
 def relocate_poses(r, t, skip_first_row: bool = False):
@@ -83,7 +88,7 @@ def relocate_poses(r, t, skip_first_row: bool = False):
     composition); this function matches that observable behavior.
     """
     r0_inv = jnp.swapaxes(r[0], -1, -2)
-    new_r = jnp.einsum("ij,njk->nik", r0_inv, r)
+    new_r = jnp.einsum("ij,njk->nik", r0_inv, r, precision=_HI)
     new_t = t - t[0]
     if skip_first_row:
         new_r = new_r.at[0].set(r[0])

@@ -29,13 +29,11 @@ from typing import Dict
 
 from rs_sfm_tpu.flow.dense import DenseFlowConfig
 
-# r5: both production presets run 6 warping iterations at the COARSE
+# Both production presets run 6 warping iterations at the COARSE
 # pyramid levels (finest stays at 3).  Extra coarse relinearizations are
 # where wrong basins around movers/large motions get corrected (measured,
-# results/flow_matrix_r5.json + /tmp diagnosis transcribed in STRESS.md:
-# mover-scene median EPE 12.7 -> 4.7 px plain, photo 2.61 -> 1.76,
-# bigmotion 0.24 -> 0.11) at +10.7 ms of the ~78 ms full-HD forward pass
-# (results/profile_r5d.json fb_wc6).
+# results/flow_matrix_r5.json and STRESS.md: mover-scene median EPE
+# 12.7 -> 4.7 px plain, photo 2.61 -> 1.76, bigmotion 0.24 -> 0.11).
 FLOW_PRESETS: Dict[str, DenseFlowConfig] = {
     "variational": DenseFlowConfig(warps_coarse=6),
     "fast": DenseFlowConfig(levels=4, warps=2, iters=24),
@@ -46,7 +44,7 @@ FLOW_PRESETS: Dict[str, DenseFlowConfig] = {
 
 def get_flow_preset(name: str, **overrides) -> DenseFlowConfig:
     """Look up a flow preset by name, optionally overriding fields
-    (e.g. ``get_flow_preset("robust", warp_engine="pallas")``).
+    (e.g. ``get_flow_preset("robust", backward_scale=2)``).
 
     "auto" requires the frame pair — use resolve_flow_preset."""
     try:

@@ -1,11 +1,12 @@
-"""TPU-native compute primitives: batched small-matrix linear algebra and
-Pallas kernels.
+"""Compute primitives: batched small-matrix linear algebra and the fused
+SOR kernel (sor_cuda).
 
 The reference leans on Eigen (JacobiSVD, SelfAdjointEigenSolver, EigenSolver,
 matrix inverses — reference src/minimal.cc:56-113) for its tiny-core linear
 algebra.  General nonsymmetric eigendecomposition is not available inside
-XLA on TPU, so this package provides fully batched, vmap/jit-friendly
-implementations built from elementwise ops — they run identically on TPU,
+XLA on accelerators, and batched tiny-matrix solves are faster as fused
+elementwise code, so this package provides fully batched, vmap/jit-friendly
+implementations built from elementwise ops — they run identically on GPU,
 CPU and inside shard_map, with no host callbacks:
 
   linalg.eigh_small      cyclic-Jacobi symmetric eigendecomposition

@@ -17,6 +17,25 @@ import jax.numpy as jnp
 
 
 # ---------------------------------------------------------------------------
+# Gram sums over pixels
+# ---------------------------------------------------------------------------
+
+
+def gram(x):
+    """XᵀX of a tall (..., n) stack, summed over every leading axis.
+
+    An elementwise product and a reduction rather than a matrix product:
+    the products are exact in float32 (no TF32 or bf16 passes), and XLA
+    fuses the whole sum into one reduction.  As a dot, the same sum over
+    millions of rows, vmapped over a few multi-start problems, becomes a
+    batched GEMM with a contraction of millions that cuBLAS runs ~45 ms a
+    call on an H100 (PERF.md).
+    """
+    return jnp.sum(x[..., :, None] * x[..., None, :],
+                   axis=tuple(range(x.ndim - 1)))
+
+
+# ---------------------------------------------------------------------------
 # Symmetric eigendecomposition: cyclic Jacobi
 # ---------------------------------------------------------------------------
 
@@ -108,8 +127,8 @@ def null_vector(z):
     Returns:
       (..., n) unit vector spanning the (approximate) null space.
     """
-    # HIGHEST: on TPU the default matmul precision truncates operands
-    # toward bf16 on the MXU; the null space of ZᵀZ is precisely where that
+    # HIGHEST: a default-precision f32 product may run in TF32 (10-bit
+    # mantissa operands); the null space of ZᵀZ is precisely where that
     # truncation destroys the answer in f32.
     ztz = jnp.einsum("...ij,...ik->...jk", z, z,
                      precision=jax.lax.Precision.HIGHEST)

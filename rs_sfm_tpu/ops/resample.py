@@ -1,18 +1,12 @@
-"""Pyramid resampling primitives with TPU-friendly lowerings.
+"""Pyramid resampling primitives as convolutions.
 
-The flow pyramid's original formulations — `blur(x)[::2, ::2]` for
-downsampling and a stack/reshape interleave for the exact 2x bilinear
-upsample (flow/dense.py `_downsample`/`_up2`) — are correct but lower
-badly on TPU: the stride-2 slice and the column interleave both decimate/
-interleave the LANE (last) dimension, which XLA realizes as full-plane
-relayouts.  Measured (results/profile_r5.json): ONE 540x960 -> 1080x1920
-`_up2` plane costs ~17 ms standalone and a 6-level pyramid build ~13 ms —
-~500x their byte rooflines — and the flow pipeline pays ~10 upsamples +
-2 pyramid builds per forward pass.
-
-The formulations here express the same stencils as strided / dilated
-convolutions (`lax.conv_general_dilated`), which the TPU compiler lowers
-through its native convolution path with no relayout:
+The flow pyramid's formulations — `blur(x)[::2, ::2]` for downsampling
+and a stack/reshape interleave for the exact 2x bilinear upsample
+(flow/dense.py `_downsample`/`_up2`) — decimate and interleave the last
+dimension.  The formulations here express the same stencils as strided /
+dilated convolutions (`lax.conv_general_dilated`) instead, for a backend
+whose compiler relays out such planes.  Not on the production path; not
+measured on a GPU (ROADMAP D2):
 
   * down2_blur(x)  == _gauss_blur(x)[::2, ::2]   (5-tap binomial,
     edge-clamped via explicit edge padding + VALID windows);

@@ -1,7 +1,7 @@
 """Parallelism: device meshes, pair-batched and pixel-sharded estimation.
 
 The reference is a single-threaded CPU binary (SURVEY.md §2.4); every
-strategy here is a TPU-native generalization over a `(pairs, pixels)` mesh:
+strategy here is a generalization over a `(pairs, pixels)` device mesh:
 
   * DP  — independent RS frame pairs sharded over the `pairs` axis
           (the batched analog of the reference's sequential task loop,

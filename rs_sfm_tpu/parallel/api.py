@@ -5,9 +5,9 @@ Two complementary paths:
   estimate_pairs_batched — GSPMD: vmap the jitted pipeline over a batch of
       frame pairs, shard the batch over `pairs` and image rows (scanline
       blocks) over `pixels`, and let XLA partition the elementwise pixel
-      work and insert the collectives.  This is the idiomatic TPU path: the
-      pipeline is reductions + elementwise ops, exactly what GSPMD
-      propagates well.  Verified (scripts/check_gspmd_sharding.py, 8-device
+      work and insert the collectives.  The pipeline is reductions +
+      elementwise ops, exactly what GSPMD propagates well.  Verified
+      (scripts/check_gspmd_sharding.py, 8-device
       (2 pairs x 4 pixels) mesh, 256px/256 trials): the optimized module
       contains 8 all-reduces + 1 small all-gather + 1 collective-permute
       and NO pixel-scale all-gathers — XLA keeps the pixel axis sharded
@@ -79,8 +79,7 @@ def estimate_sharded(mesh: Mesh, intr: Intrinsics, gamma,
       * psum'd 7x7 Schur system / k-scan normal equations / sign flip.
 
     The full PipelineConfig feature set (multi-start refinement, two-stage
-    prescore, acceleration model with k-scan) runs sharded; only the
-    single-device Pallas engines fall back to their XLA twins.
+    prescore, acceleration model with k-scan) runs sharded.
 
     Returns a function (flow (H, W, 2), key) -> EstimationResult whose
     per-pixel fields are sharded over `axis` rows.  H need not divide the
@@ -123,10 +122,6 @@ def estimate_sharded(mesh: Mesh, intr: Intrinsics, gamma,
                 inlier_mask=P(axis, None), valid_mask=P(axis, None),
                 num_inliers=P(), ransac_v=P(), ransac_w=P(), ransac_k=P(),
                 refine_cost=P(), top_v=P(), top_w=P(), top_k=P()),
-            # The varying-mesh-axes checker cannot type pallas_call
-            # outputs (the r5 sharded Pallas engines); replication is
-            # managed explicitly — every scalar output follows a psum.
-            check_vma=False,
         )
         res = fn(flow, key, row0)
         if hp != h:

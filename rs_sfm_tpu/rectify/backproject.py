@@ -10,25 +10,22 @@ deterministic under any sharding.  Void pixels (RGB(1,1,1) mask — exact
 match on the uint8 value 1 — src/rsframe.cc:815) and zero-depth pixels are
 skipped.
 
-Conflict-resolution engines (full-HD TPU v5e; r4 microbench
-results/profile_r4.json):
+Conflict-resolution engines:
   * "packed24" (default): ONE scatter-min on a (quantized depth | 24-bit
     color) int32 key — the winning COLOR rides in the key, so there is no
-    source-id gather at all.  The r4 profiling showed the packed engine's
-    cost is dominated by its (N, 3) f32 color gather (~45 ms of the ~51 ms
-    realistic-scene stage time; the scatter-min op itself floors at
-    ~18 ms regardless of locality or live-update count) — dropping the
-    gather cuts the stage to the scatter-op floor.  Depth is quantized to
+    source-id gather at all.  Depth is quantized to
     7 bits (128 levels over the scene span; the front/back separation this
     stage needs), colors to 8 bits/channel (exact for uint8 sources, the
     reference's image type — src/rsframe.cc:803); ties at equal quantized
     depth break toward the smallest packed color (deterministic).
-  * "packed" (0.056 s): scatter-min on (9-bit depth | source id) + one
-    color gather — exact colors for float sources, ties by lowest id.
-  * "scatter" (0.178 s): two-pass scatter-min on exact float depths —
-    the bit-exact-depth reference implementation.
-  * "sort" (0.35 s): scatter-free stable-sort + binary search; useful on
-    backends where scatter is the slow path.
+  * "packed": scatter-min on (9-bit depth | source id) + one color
+    gather — exact colors for float sources, ties by lowest id.
+  * "scatter": two-pass scatter-min on exact float depths — the
+    bit-exact-depth reference implementation.
+  * "sort": scatter-free stable-sort + binary search; useful on backends
+    where scatter is the slow path.
+The scatter-min engines are deterministic on a GPU although the updates
+land through atomics in no fixed order: min commutes.
 """
 
 from __future__ import annotations
@@ -94,6 +91,7 @@ def _resolve_sort(flat_idx, src_depth, colors, n, depth_bits: int = 9):
     return gs_flat, hit
 
 
+@jax.named_scope("rectify")
 def backproject(image, depth_map, poses_r, poses_t, intr: Intrinsics,
                 *, use_fy: bool = True, use_scanline_pose: bool = True,
                 method: str = "packed24") -> BackprojectResult:
@@ -210,23 +208,6 @@ def backproject(image, depth_map, poses_r, poses_t, intr: Intrinsics,
                                      src_depth.astype(jnp.float32), colors, n)
         gs_image = gs_flat.reshape(h, w_cols, 3)
         scattered = hit.reshape(h, w_cols)
-    elif method == "pallas":
-        # Scatter-free Pallas engine (ops/pallas/zbuffer.py): target-side
-        # shift-select search with exact f32 depth compares.  Sources
-        # deviating from their target block's inverse-displacement
-        # consensus by more than the radius are missed (cracks; handled by
-        # crackfill like every other engine's void pixels).
-        from rs_sfm_tpu.ops.pallas.zbuffer import zbuffer_splat
-
-        tx = jnp.where(write, pt[..., 0], jnp.inf)
-        ty = jnp.where(write, pt[..., 1], jnp.inf)
-        dz = jnp.where(write, cam0[..., 2], jnp.inf)
-        cols_f = (image.astype(jnp.float32) if
-                  jnp.issubdtype(image.dtype, jnp.integer) else image)
-        gs_f, scattered = zbuffer_splat(tx, ty, dz, cols_f)
-        gs_image = (jnp.round(gs_f).astype(image.dtype)
-                    if jnp.issubdtype(image.dtype, jnp.integer) else
-                    gs_f.astype(image.dtype))
     elif method == "scatter":
         # Pass 1: winning (minimum) target depth.
         zbuf = jnp.full((n + 1,), jnp.inf, dtype=dtype)

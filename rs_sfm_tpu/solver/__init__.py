@@ -2,7 +2,7 @@
 estimation, vectorized RANSAC, closed-form per-pixel depth, Schur-reduced
 Levenberg–Marquardt joint refinement.
 
-TPU-native replacement for the reference's L3 layer (src/minimal.{h,cc},
+JAX replacement for the reference's L3 layer (src/minimal.{h,cc},
 src/nonlinearRefinement.{h,cc}).  All functions work on full fixed-shape
 pixel grids with validity masks (no compaction) so everything jits, vmaps
 over frame pairs, and shards over pixels.

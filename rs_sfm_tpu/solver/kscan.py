@@ -52,11 +52,9 @@ def _fit_vw(coords, flow, alpha, alpha_k, m, rho, k, axis_name):
     g = jnp.stack(cols, axis=-1)  # (N, 2, 6)
     gm = g * m[..., None, None]
     aug = jnp.concatenate([gm, (flow * m[..., None])[..., None]], axis=-1)
-    # HIGHEST: same rationale as the refinement's Schur assembly — the TPU
-    # default MXU precision truncates toward bf16 and the k valley is
-    # cancellation-sensitive.
-    gram = _psum(jnp.einsum("nri,nrj->ij", aug, aug,
-                            precision=jax.lax.Precision.HIGHEST), axis_name)
+    # Exact-product reduction, as in the refinement's Schur assembly: the
+    # k valley is cancellation-sensitive.
+    gram = _psum(linalg.gram(aug), axis_name)
     gtg = gram[:6, :6] + 1e-12 * jnp.eye(6, dtype=dt)
     gtu = gram[:6, 6]
     theta = linalg.gauss_solve(gtg, gtu)

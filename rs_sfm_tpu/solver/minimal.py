@@ -6,7 +6,7 @@ S = ½(v̂ŵ + ŵv̂) (report eq. 14, 21), following the linear differential
 algorithm of Ma/Košecká/Sastry plus the project's own k-from-det(Z(k))
 elimination (reference src/minimal.cc:36-177).
 
-TPU-first design: every step is a tiny fixed-shape matrix computation built
+Every step is a tiny fixed-shape matrix computation built
 on ops.linalg, so the whole solver vmaps over thousands of RANSAC hypotheses
 in one fused pass (the reference runs one Eigen solve per sequential trial).
 Leading batch axes broadcast throughout.
@@ -37,8 +37,8 @@ _INV_VANDERMONDE = np.linalg.inv(np.vander(_K_NODES, 7, increasing=True))
 
 def _highest_matmul(fn):
     """Run fn with HIGHEST matmul precision: the tiny-matrix chains here
-    are cancellation-sensitive, and the TPU's default MXU precision
-    (bf16-truncated operands) measurably breaks the f32 k-path."""
+    are cancellation-sensitive, and reduced-precision operands (bf16 or
+    TF32 products) measurably break the f32 k-path."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
@@ -91,7 +91,7 @@ def estimate_k_roots(z, alpha, alpha_k):
         inverse Vandermonde) rooted with Durand–Kerner — the path verified
         bit-close against the reference binary (tests/test_parity_reference).
       * float32: the polynomial-coefficient recovery is catastrophically
-        ill-conditioned in single precision (measured on TPU: k̂ off by
+        ill-conditioned in single precision (measured: k̂ off by
         ±5), so candidates come from Newton iteration on det(M(κ)) = 0
         directly, using Jacobi's formula
             d/dκ log det(M) = tr(M⁻¹ p_k)  ⇒  Newton step Δκ = −1/tr(M⁻¹p_k)
@@ -100,7 +100,7 @@ def estimate_k_roots(z, alpha, alpha_k):
         are flagged imaginary so the existing real-root filters drop them.
     """
     dtype = z.dtype
-    # f32-on-TPU hazard (measured: k roots turn to garbage at default MXU
+    # f32 hazard (measured: k roots turn to garbage at reduced matmul
     # precision): every matmul in these chains runs HIGHEST.
     p, p_k = _k_pencil(z, alpha, alpha_k)
     if dtype == jnp.float64:
@@ -194,8 +194,9 @@ def estimate_k(z, alpha, alpha_k, compat_negate: bool = False):
 
     The reference instead takes k as an eigenvalue of p·p_k⁻¹
     (src/minimal.cc:70-80), which equals −root; pass compat_negate=True to
-    reproduce that behavior.  Instead of a general eigensolver (unavailable
-    on TPU), the polynomial is recovered exactly from 7 determinant
+    reproduce that behavior.  Instead of a general nonsymmetric
+    eigensolver (XLA has none on accelerators), the polynomial is
+    recovered exactly from 7 determinant
     evaluations (fixed inverse Vandermonde) and rooted with Durand–Kerner.
 
     Selection follows the reference: real roots only (|imag| < 1e-5), the one

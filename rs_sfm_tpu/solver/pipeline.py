@@ -105,7 +105,7 @@ def estimate_from_flow(
       cfg: pipeline configuration.
       key: PRNG key for RANSAC sampling.
       axis_name: collective axis when pixels are sharded (shard_map).  One
-        code path serves both engines: RANSAC samples from a globally
+        code path serves both layouts: RANSAC samples from a globally
         shared pool and reduces votes in one psum per stage, kscan/refine
         psum their pixel reductions, and the sign flip uses the global mean
         depth.  Scalar outputs are replicated; per-pixel outputs are the
@@ -150,16 +150,16 @@ def estimate_from_flow(
             inlier_error=_psum(err_ws[0]),
             top_v=v_ws[None], top_w=w_ws[None], top_k=k_ws[None])
     else:
-        rr = ransac(
-            coords, flow_n, alpha, alpha_k, valid,
-            key=key, use_k=use_k, trials=cfg.ransac_trials,
-            tolerance=cfg.ransac_tol, chunk=cfg.ransac_chunk,
-            engine=cfg.ransac_engine,
-            prescore_subsample=cfg.ransac_prescore_subsample,
-            prescore_keep=cfg.ransac_prescore_keep,
-            top_j=cfg.refine_starts if cfg.use_refinement else 1,
-            top_j_diversity=cfg.refine_start_diversity,
-            axis_name=axis_name, sample_pool=cfg.ransac_sample_pool)
+        with jax.named_scope("ransac"):
+            rr = ransac(
+                coords, flow_n, alpha, alpha_k, valid,
+                key=key, use_k=use_k, trials=cfg.ransac_trials,
+                tolerance=cfg.ransac_tol, chunk=cfg.ransac_chunk,
+                prescore_subsample=cfg.ransac_prescore_subsample,
+                prescore_keep=cfg.ransac_prescore_keep,
+                top_j=cfg.refine_starts if cfg.use_refinement else 1,
+                top_j_diversity=cfg.refine_start_diversity,
+                axis_name=axis_name, sample_pool=cfg.ransac_sample_pool)
 
     def run_kscan(inlier_mask, v0, w0, k0, rho0):
         if use_k and cfg.k_scan_points > 0:
@@ -173,45 +173,14 @@ def estimate_from_flow(
         return v0, w0, k0, rho0
 
     # Huber knee in normalized units (intrinsics are static trace-time
-    # floats); both engines implement the same IRLS formulation.
+    # floats).
     loss_delta = (cfg.refine_loss_delta_px
                   / float((intr.fx * intr.fy) ** 0.5)
                   if cfg.refine_loss_delta_px > 0.0 else 0.0)
-    use_pallas_refine = cfg.refine_engine == "pallas"
 
-    def _sharded_refine(masks_j, v_j, w_j, k_j, rho_j, iters):
-        # Sharded fused LM (r5, VERDICT r4 item 5): per-shard Pallas
-        # pixel sweep + ONE psum of the 71-sum accumulators per
-        # iteration + replicated JAX decide.
-        from rs_sfm_tpu.solver.refine_pallas import (
-            refine_pallas_multi_sharded)
-
-        return refine_pallas_multi_sharded(
-            coords, flow_n, alpha, alpha_k, masks_j, v_j, w_j, k_j,
-            rho_j, axis_name=axis_name, optimize_k=use_k,
-            iterations=iters, rel_tol=cfg.refine_rel_tol,
-            loss_delta=loss_delta)
-
+    @jax.named_scope("refine_lm")
     def run_refine(inlier_mask, v0, w0, k0, rho0):
         v0, w0, k0, rho0 = run_kscan(inlier_mask, v0, w0, k0, rho0)
-        if use_pallas_refine and axis_name is not None:
-            from rs_sfm_tpu.solver.refine import RefineResult
-
-            r1 = _sharded_refine(inlier_mask[None], v0[None], w0[None],
-                                 k0[None], rho0[None],
-                                 cfg.refine_iterations)
-            return RefineResult(
-                v=r1.v[0], w=r1.w[0], k=r1.k[0],
-                inv_depth=r1.inv_depth[0], cost=r1.cost[0],
-                initial_cost=r1.initial_cost[0])
-        if use_pallas_refine:
-            from rs_sfm_tpu.solver.refine_pallas import refine_pallas
-
-            return refine_pallas(
-                coords, flow_n, alpha, alpha_k, inlier_mask,
-                v0, w0, k0, rho0,
-                optimize_k=use_k, iterations=cfg.refine_iterations,
-                rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
         return refine(
             coords, flow_n, alpha, alpha_k, inlier_mask,
             v0, w0, k0, rho0,
@@ -221,9 +190,8 @@ def estimate_from_flow(
 
     if cfg.use_refinement and cfg.refine_starts > 1 and warm_start is None:
         # Multi-start: refine ALL top-J hypotheses as one batched problem —
-        # the J starts share the pixel record, so the fused Pallas kernel
-        # streams it once per LM iteration regardless of J, and the XLA
-        # path vmaps the refinement (shared operands broadcast).  Each
+        # the refinement is vmapped over the starts, which share the pixel
+        # record (shared operands broadcast).  Each
         # refined model is re-scored against all pixels and the
         # lexicographic best (#inliers desc, error asc) wins, identical in
         # semantics to refining the starts one at a time (the round-3
@@ -241,17 +209,8 @@ def estimate_from_flow(
                   else 0)
         multi_iters = winnow if winnow else cfg.refine_iterations
 
+        @jax.named_scope("refine_lm")
         def refine_multi(masks, vs, ws, ks, rhos, iters):
-            if use_pallas_refine and axis_name is not None:
-                return _sharded_refine(masks, vs, ws, ks, rhos, iters)
-            if use_pallas_refine:
-                from rs_sfm_tpu.solver.refine_pallas import (
-                    refine_pallas_multi)
-
-                return refine_pallas_multi(
-                    coords, flow_n, alpha, alpha_k, masks, vs, ws, ks,
-                    rhos, optimize_k=use_k, iterations=iters,
-                    rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
             return jax.vmap(
                 lambda m, a, b, c, d: refine(
                     coords, flow_n, alpha, alpha_k, m, a, b, c, d,
@@ -441,50 +400,60 @@ def estimate_with_feedback(
                              pixel_mask=pixel_mask)
     if cfg.feedback_passes <= 0:
         return res
-    from rs_sfm_tpu.flow.feedback import model_feedback
-
-    h, w_cols = flow_px.shape[:2]
     # Diversity-start candidates of the FIRST estimation, kept across all
     # passes: later passes run warm-start refinement only, so without this
     # set a pass-1 wrong-basin selection could never be revisited (the
     # mover-scene protocol tail, STRESS.md r5 / cfg.feedback_revote).
     cands0 = (res.top_v, res.top_w, res.top_k)
     for p in range(cfg.feedback_passes):
-        occ0 = (~pixel_mask if pixel_mask is not None
-                else jnp.zeros((h, w_cols), bool))
-        fbk = model_feedback(
-            flow_px, occ0, res, intr, gamma, cfg,
-            residual_tol_px=cfg.feedback_residual_tol_px)
-        pixel_mask = ~fbk.occlusion
-        if cfg.feedback_mode != "refine":
-            warm = None
-        elif cfg.feedback_revote and cands0[0].shape[0] > 1:
-            # Re-vote {current model} ∪ {first-pass refined starts} on the
-            # feedback-trusted mask.  The current model is row 0, so the
-            # earliest-index tie-break keeps it unless a dethroned basin
-            # strictly wins on the cleaned evidence.
-            cv = jnp.concatenate([res.v[None], cands0[0]])
-            cw = jnp.concatenate([res.w[None], cands0[1]])
-            ck = jnp.concatenate([res.k[None], cands0[2]])
-            coords_r, flow_r, al_r, alk_r, val_r = prepare_flow_inputs(
-                flow_px, intr, gamma, cfg)
-            val_r = val_r & pixel_mask.reshape(-1)
-            num_c, err_c, _, _ = _score_hypotheses(
-                coords_r, flow_r, al_r, alk_r, val_r, cv, cw, ck,
-                cfg.ransac_tol)
-            err_c = jnp.where(jnp.isfinite(err_c), err_c, jnp.inf)
-            err_m = jnp.where(num_c == jnp.max(num_c), err_c, jnp.inf)
-            best_c = jnp.argmin(err_m)
-            warm = (cv[best_c], cw[best_c], ck[best_c])
-        else:
-            warm = (res.v, res.w, res.k)
-        cfg_p = cfg
-        if warm is not None and cfg.feedback_refine_iterations > 0:
-            import dataclasses
-
-            cfg_p = dataclasses.replace(
-                cfg, refine_iterations=cfg.feedback_refine_iterations)
-        res = estimate_from_flow(flow_px, intr, gamma, cfg_p,
-                                 jax.random.fold_in(key, 101 + p),
-                                 pixel_mask=pixel_mask, warm_start=warm)
+        res, pixel_mask = _feedback_pass(flow_px, intr, gamma, cfg, key, p,
+                                         res, pixel_mask, cands0)
     return res
+
+
+@jax.named_scope("feedback")
+def _feedback_pass(flow_px, intr, gamma, cfg, key, p, res, pixel_mask,
+                   cands0):
+    """One model-feedback pass: extend the untrusted mask against `res`,
+    then re-estimate on the trusted pixels."""
+    from rs_sfm_tpu.flow.feedback import model_feedback
+
+    h, w_cols = flow_px.shape[:2]
+    occ0 = (~pixel_mask if pixel_mask is not None
+            else jnp.zeros((h, w_cols), bool))
+    fbk = model_feedback(
+        flow_px, occ0, res, intr, gamma, cfg,
+        residual_tol_px=cfg.feedback_residual_tol_px)
+    pixel_mask = ~fbk.occlusion
+    if cfg.feedback_mode != "refine":
+        warm = None
+    elif cfg.feedback_revote and cands0[0].shape[0] > 1:
+        # Re-vote {current model} ∪ {first-pass refined starts} on the
+        # feedback-trusted mask.  The current model is row 0, so the
+        # earliest-index tie-break keeps it unless a dethroned basin
+        # strictly wins on the cleaned evidence.
+        cv = jnp.concatenate([res.v[None], cands0[0]])
+        cw = jnp.concatenate([res.w[None], cands0[1]])
+        ck = jnp.concatenate([res.k[None], cands0[2]])
+        coords_r, flow_r, al_r, alk_r, val_r = prepare_flow_inputs(
+            flow_px, intr, gamma, cfg)
+        val_r = val_r & pixel_mask.reshape(-1)
+        num_c, err_c, _, _ = _score_hypotheses(
+            coords_r, flow_r, al_r, alk_r, val_r, cv, cw, ck,
+            cfg.ransac_tol)
+        err_c = jnp.where(jnp.isfinite(err_c), err_c, jnp.inf)
+        err_m = jnp.where(num_c == jnp.max(num_c), err_c, jnp.inf)
+        best_c = jnp.argmin(err_m)
+        warm = (cv[best_c], cw[best_c], ck[best_c])
+    else:
+        warm = (res.v, res.w, res.k)
+    cfg_p = cfg
+    if warm is not None and cfg.feedback_refine_iterations > 0:
+        import dataclasses
+
+        cfg_p = dataclasses.replace(
+            cfg, refine_iterations=cfg.feedback_refine_iterations)
+    res = estimate_from_flow(flow_px, intr, gamma, cfg_p,
+                             jax.random.fold_in(key, 101 + p),
+                             pixel_mask=pixel_mask, warm_start=warm)
+    return res, pixel_mask

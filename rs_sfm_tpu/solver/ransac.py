@@ -33,6 +33,10 @@ from rs_sfm_tpu.solver.flow_model import predict_flow
 from rs_sfm_tpu.solver.minimal import (calculate_velocities,
                                        calculate_velocities_all_k)
 
+# Per-pixel geometry: a default-precision f32 product may run in TF32 on
+# a GPU, ~1e-3 relative, i.e. pixels at f ≈ 1800.
+_HI = jax.lax.Precision.HIGHEST
+
 
 def shared_sample_pool(coords, flow, alpha, alpha_k, valid, pool: int,
                        axis_name: str):
@@ -132,7 +136,6 @@ def ransac(
     tolerance: float,
     chunk: int = 64,
     k_mode: str = "score",
-    engine: str = "xla",
     prescore_subsample: int = 0,
     prescore_keep: int = 16,
     compat_negate_k: bool = False,
@@ -186,11 +189,9 @@ def ransac(
     solver_dt = jnp.float64 if jax.config.jax_enable_x64 else coords.dtype
 
     if axis_name is not None:
-        # Sampling from the globally shared pool; SCORING stays
-        # engine-selectable since r5 — the Pallas scorer runs on each
-        # shard's local pixel block (a pallas_call inside shard_map is a
-        # per-device kernel) and the ONE-psum vote merge below is
-        # engine-agnostic (VERDICT r4 item 5).
+        # Sampling from the globally shared pool; scoring runs on each
+        # shard's local pixel block and the ONE-psum vote merge below
+        # combines the shards.
         pool = min(sample_pool, n)
         pc, pf, pa, pak, pv = shared_sample_pool(
             coords, flow, alpha, alpha_k, valid_mask, pool, axis_name)
@@ -268,49 +269,36 @@ def ransac(
         valid_h = valid_h[top]
         trials = prescore_keep
 
-    if engine == "pallas":
-        # Fused VMEM-resident scoring kernel: all hypotheses in one pass
-        # (float32; the final best-hypothesis rescoring below stays exact in
-        # the working dtype).
-        from rs_sfm_tpu.ops.pallas.score import (pack_hyps, pack_pixels,
-                                                 score_hypotheses_pallas)
-
-        px = pack_pixels(coords, flow, alpha, alpha_k, valid_mask)
-        hy = pack_hyps(v_all, w_all, k_all)
-        nums_f, ierrs = score_hypotheses_pallas(px, hy, float(tolerance))
-        nums = nums_f.astype(jnp.int32)
-        ierrs = ierrs.astype(coords.dtype)
+    pad = (-trials) % chunk
+    if pad:
+        w_all_p = jnp.concatenate(
+            [w_all, jnp.zeros((pad, 3), w_all.dtype)])
+        v_all_p = jnp.concatenate(
+            [v_all, jnp.zeros((pad, 3), v_all.dtype)])
+        k_all_p = jnp.concatenate(
+            [k_all, jnp.zeros((pad,), k_all.dtype)])
     else:
-        pad = (-trials) % chunk
-        if pad:
-            w_all_p = jnp.concatenate(
-                [w_all, jnp.zeros((pad, 3), w_all.dtype)])
-            v_all_p = jnp.concatenate(
-                [v_all, jnp.zeros((pad, 3), v_all.dtype)])
-            k_all_p = jnp.concatenate(
-                [k_all, jnp.zeros((pad,), k_all.dtype)])
-        else:
-            w_all_p, v_all_p, k_all_p = w_all, v_all, k_all
-        w_ch = w_all_p.reshape(-1, chunk, 3)
-        v_ch = v_all_p.reshape(-1, chunk, 3)
-        k_ch = k_all_p.reshape(-1, chunk)
+        w_all_p, v_all_p, k_all_p = w_all, v_all, k_all
+    w_ch = w_all_p.reshape(-1, chunk, 3)
+    v_ch = v_all_p.reshape(-1, chunk, 3)
+    k_ch = k_all_p.reshape(-1, chunk)
 
-        def score_chunk(carry, vwk):
-            v_c, w_c, k_c = vwk
-            num, ierr, _, _ = _score_hypotheses(
-                coords, flow, alpha, alpha_k, valid_mask, v_c, w_c, k_c,
-                tolerance)
-            return carry, (num, ierr)
+    def score_chunk(carry, vwk):
+        v_c, w_c, k_c = vwk
+        num, ierr, _, _ = _score_hypotheses(
+            coords, flow, alpha, alpha_k, valid_mask, v_c, w_c, k_c,
+            tolerance)
+        return carry, (num, ierr)
 
-        _, (nums, ierrs) = jax.lax.scan(
-            score_chunk, None, (v_ch, w_ch, k_ch))
-        nums = nums.reshape(-1)[:trials]
-        ierrs = ierrs.reshape(-1)[:trials]
+    _, (nums, ierrs) = jax.lax.scan(
+        score_chunk, None, (v_ch, w_ch, k_ch))
+    nums = nums.reshape(-1)[:trials]
+    ierrs = ierrs.reshape(-1)[:trials]
     n_total = n
     if axis_name is not None:
         # ONE psum of the stacked (T, 2) vote table per RANSAC — not two
         # scalar psums per hypothesis, which would serialize ~2·T
-        # collectives on real ICI.
+        # collectives.
         votes = jax.lax.psum(
             jnp.stack([nums.astype(ierrs.dtype), ierrs], axis=-1),
             axis_name)
@@ -372,7 +360,8 @@ def ransac(
                 ci = order[i]
                 cv = vn[ci]
                 filled = jnp.arange(top_j) < cnt
-                clash = jnp.any(filled & (jnp.abs(selv @ cv) > cos_thr))
+                clash = jnp.any(filled & (jnp.abs(
+                    jnp.dot(selv, cv, precision=_HI)) > cos_thr))
                 # Only real hypotheses may fill slots: invalid root slots
                 # carry v = 0, whose direction never "clashes" — without
                 # this gate they would occupy starts when fewer than top_j

@@ -181,15 +181,13 @@ def refine(
         # current cost = M[7,7].
         x_aug = jnp.concatenate(
             [j_theta * mw[..., None], (r * mw)[..., None]], axis=-1)
-        # HIGHEST: the 7x7 Schur assembly is cancellation-sensitive and the
-        # TPU default MXU precision truncates operands toward bf16 (same
-        # rationale as the Pallas engine's explicit dot_general precision).
-        gram = jnp.einsum("nri,nrj->ij", x_aug, x_aug,
-                          precision=jax.lax.Precision.HIGHEST)
+        # The 7x7 Schur assembly is cancellation-sensitive: the sums are
+        # exact-product reductions (linalg.gram), never TF32 matmuls.
+        gram = linalg.gram(x_aug)
         h_tt = _psum(gram[:7, :7], axis_name)
         g_t = _psum(gram[:7, 7], axis_name)
-        c_i = jnp.einsum("nri,nr->ni", j_theta, j_rho * m_eff[..., None],
-                         precision=jax.lax.Precision.HIGHEST)  # (N, 7)
+        c_i = jnp.sum(j_theta * (j_rho * m_eff[..., None])[..., None],
+                      axis=-2)                               # (N, 7)
         d_i = jnp.sum(j_rho * j_rho, axis=-1) * m_eff        # (N,)
         g_rho = jnp.sum(j_rho * r, axis=-1) * m_eff          # (N,)
 
@@ -208,9 +206,7 @@ def refine(
         y_aug = jnp.concatenate(
             [c_i * inv_sqrt_d[..., None],
              (g_rho * inv_sqrt_d)[..., None]], axis=-1)
-        gram_y = _psum(jnp.einsum("ni,nj->ij", y_aug, y_aug,
-                                  precision=jax.lax.Precision.HIGHEST),
-                       axis_name)
+        gram_y = _psum(linalg.gram(y_aug), axis_name)
         h_red = h_aug - gram_y[:7, :7]
         g_red = g_t - gram_y[:7, 7]
 
@@ -238,8 +234,8 @@ def refine(
         rho_star, informative = estimate_inverse_depth_info(
             coords, flow, v_new, w_new, k_new, alpha, alpha_k)
         # Uninformative pixels (vanishing translational flow) keep their
-        # incoming ρ — matches the Pallas kernel's d==0 behavior and the
-        # reference's Ceres (which leaves its ρ init untouched there);
+        # incoming ρ — matches the reference's Ceres (which leaves its ρ
+        # init untouched there);
         # cost-neutral either way.
         rho_new = jnp.where(mask & informative, rho_star, rho)
 

@@ -1,7 +1,7 @@
 """Debug modes: NaN guarding and determinism checks.
 
 The single-threaded reference needs no race detection (SURVEY.md §5); the
-TPU-native equivalents are (a) NaN-checked execution for flushing numeric
+equivalents here are (a) NaN-checked execution for flushing numeric
 bugs out of jitted code and (b) bitwise determinism checks per PRNG key
 (tests/test_properties.py::test_pipeline_deterministic_per_key).
 """

@@ -24,6 +24,10 @@ from rs_sfm_tpu.config import PipelineConfig
 from rs_sfm_tpu.geom.camera import Intrinsics
 from rs_sfm_tpu.solver.pipeline import EstimationResult, estimate_from_flow
 
+# Per-pixel geometry: a default-precision f32 product may run in TF32 on
+# a GPU, ~1e-3 relative, i.e. pixels at f ≈ 1800.
+_HI = jax.lax.Precision.HIGHEST
+
 
 class VideoResult(NamedTuple):
     v: jax.Array            # (P, 3) per-pair linear velocity
@@ -99,8 +103,8 @@ def accumulate_trajectory(video: VideoResult, gamma, rows: int):
         dr = so3.exp_first_order(w)
         dr = jnp.where(ok, dr, jnp.eye(3, dtype=dr.dtype))
         dv = jnp.where(ok, v, jnp.zeros_like(v))
-        r_new = jnp.einsum("ij,jk->ik", dr, r_acc)
-        t_new = jnp.einsum("ij,j->i", dr, t_acc) + dv
+        r_new = jnp.einsum("ij,jk->ik", dr, r_acc, precision=_HI)
+        t_new = jnp.einsum("ij,j->i", dr, t_acc, precision=_HI) + dv
         return (r_new, t_new), (r_new, t_new)
 
     r0 = jnp.eye(3, dtype=video.v.dtype)

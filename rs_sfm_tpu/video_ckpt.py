@@ -9,7 +9,7 @@ windows of W pairs, each window's VideoResult saved via
 orbax.checkpoint.CheckpointManager.  A crash/preemption resumes at the
 first unsaved window; completed windows are restored, not recomputed.
 
-Design notes (TPU-first):
+Design notes:
   * window size is static → one jitted graph reused across windows (and
     across runs, via the persistent compilation cache);
   * the last window is padded up to W pairs and masked (fixed shapes);
@@ -111,8 +111,7 @@ def process_video_checkpointed(
       window: pairs per window (static; last window padded + masked).
       min_inliers: fault-isolation threshold per pair.
       save_depth: include per-pair depth maps in each checkpoint.  At
-        full-HD a depth map is 8.3 MB/pair and checkpoint WRITES dominate
-        wall-clock 30:1 over device compute (TPU_VALIDATION.md §5);
+        full-HD a depth map is 8.3 MB/pair against ~KB of motions, and
         motions are the only state RESUME needs (depth is closed-form
         from flow + motion — recompute_depth_maps reproduces it exactly),
         so False shrinks checkpoints from ~MB/pair to ~KB/pair.  Restored
@@ -151,11 +150,9 @@ def process_video_checkpointed(
     # wi+1 is uploaded AND enqueued before window wi's result is fetched —
     # the device computes wi+1 while the host fetches wi and writes its
     # checkpoint.  This is the sliding-window analog of the
-    # flow(t+1)/solve(t) stage overlap (SURVEY §2.4 PP).  Measured
-    # (TPU_VALIDATION.md): orbax checkpoint WRITES dominate device compute
-    # at these problem sizes, so the overlap hides the DEVICE work behind
-    # the I/O (the device is never idle waiting on the host), and the save
-    # is asynchronous — the durability barrier (wait_until_finished) is
+    # flow(t+1)/solve(t) stage overlap (SURVEY §2.4 PP): the device
+    # computes while the host writes, and the save is asynchronous — the
+    # durability barrier (wait_until_finished) is
     # taken once at the end, keeping at most one window un-durable during
     # the run.
     def dispatch(wi):

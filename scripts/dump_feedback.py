@@ -3,7 +3,7 @@
 For each stress scene (its production preset): flow, FB occlusion,
 inlier mask, depth map, and GT EPE — everything needed to analyze which
 unocc high-EPE pixels exist and what distinguishes them (flow/feedback.py
-depth-coherence tuning) without re-running the TPU per parameter choice.
+depth-coherence tuning) without re-running the flow per parameter choice.
 
 Writes results/flow_dump/feedback_{scene}.npz.
 """
@@ -28,12 +28,9 @@ SCENE_PRESET = {
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(REPO, ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from rs_sfm_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
     import jax.numpy as jnp
 
     from rs_sfm_tpu.config import PipelineConfig
@@ -46,14 +43,10 @@ def main():
     est_cfg = PipelineConfig(ransac_trials=256, ransac_tol=0.02,
                              refine_iterations=20, refine_starts=4,
                              refine_winnow_iters=8, refine_rel_tol=0.0,
-                             refine_loss_delta_px=3.0,
-                             refine_engine="pallas", ransac_engine="pallas")
+                             refine_loss_delta_px=3.0)
     outdir = os.path.join(REPO, "results", "flow_dump")
     os.makedirs(outdir, exist_ok=True)
     cache = os.path.join(REPO, "results", "stress_cache")
-    on_tpu = jax.devices()[0].platform != "cpu"
-    engines = (dict(warp_engine="pallas", sor_engine="pallas")
-               if on_tpu else {})
 
     for scene, preset in SCENE_PRESET.items():
         out = os.path.join(outdir, f"feedback_{scene}.npz")
@@ -63,7 +56,7 @@ def main():
         with np.load(os.path.join(
                 cache, f"stress_{H}x{W}_{scene}_v2.npz")) as z:
             data = {k: z[k] for k in z.files}
-        fcfg = get_flow_preset(preset, **engines)
+        fcfg = get_flow_preset(preset)
         fb = flow_forward_backward(jnp.asarray(data["i1"]),
                                    jnp.asarray(data["i2"]), fcfg)
         res = estimate_from_flow(fb.flow, intr, GAMMA, est_cfg,

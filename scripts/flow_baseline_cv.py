@@ -13,8 +13,8 @@ wall-clock.  Ours = the production preset the auto probe picks for that
 scene (plain on clean/bigmotion, robust on photo/stress; reptex is the
 documented adversarial failure for every local matcher).
 
-CPU-only (cv2 runs on host); ours timed separately on TPU by bench.py —
-the wall-clock column here is for scale, not a TPU-vs-CPU comparison.
+CPU-only (cv2 runs on host); ours is timed on the GPU by bench.py — the
+wall-clock column here is for scale, not a device comparison.
 
 Writes results/flow_baseline_cv.json (table transcribed into STRESS.md).
 """
@@ -128,7 +128,7 @@ def main():
             row["ours"] = dict(epe_stats(fl, gt, rigid),
                                ms=round(dt * 1e3, 1),
                                preset=PRESET[scene],
-                               note="CPU wall-clock incl. compile; TPU "
+                               note="CPU wall-clock incl. compile; GPU "
                                     "time is bench.py's")
             occ = np.asarray(fb.occlusion)
             row["ours"]["epe_unocc_mean"] = float(

@@ -10,7 +10,7 @@ the production-config estimation error.  Decides:
   * refine_shifted=True — the discrete-refine cost collapse — EPE-neutral
     for the smooth-flow presets?
 
-Writes results/flow_matrix_r5.json.  CPU or TPU (ambient platform).
+Writes results/flow_matrix_r5.json.  CPU or GPU (ambient platform).
 """
 
 import json
@@ -34,12 +34,9 @@ PRESET = {"castle_clean": "variational", "castle_photo": "robust",
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(REPO, ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from rs_sfm_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
     import jax.numpy as jnp
 
     from rs_sfm_tpu.config import PipelineConfig
@@ -49,9 +46,6 @@ def main():
     from rs_sfm_tpu.models import get_flow_preset
     from rs_sfm_tpu.solver.pipeline import estimate_from_flow
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    engines = (dict(warp_engine="pallas", sor_engine="pallas")
-               if on_tpu else {})
 
     out = {}
     if os.path.exists(OUT):
@@ -70,7 +64,7 @@ def main():
                              refine_loss_delta_px=3.0)
 
     def variants(preset):
-        base = get_flow_preset(preset, **engines)
+        base = get_flow_preset(preset)
         return {
             "r4prod": base,
             "shifted": base._replace(refine_shifted=True),

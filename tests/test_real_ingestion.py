@@ -28,7 +28,7 @@ GAMMA = 0.9
 
 @pytest.fixture(scope="module")
 def real_pair_dir(tmp_path_factory):
-    import imageio.v3 as iio
+    from rs_sfm_tpu.data.png import write_png
 
     d = tmp_path_factory.mktemp("pseudo_real")
     intr = REGISTRY["galaxy_stabil"]  # full-HD device intrinsics
@@ -48,10 +48,10 @@ def real_pair_dir(tmp_path_factory):
         exposure=1.25, vignette=0.25, noise_sigma=0.004,
         motion_blur_px=3.0, demosaic=True, jpeg_quality=82))
     # 8-bit quantization: the real-pair loader reads uint8 PNGs.
-    iio.imwrite(str(d / "frame1.png"),
-                np.clip(np.round(i1 * 255), 0, 255).astype(np.uint8))
-    iio.imwrite(str(d / "frame2.png"),
-                np.clip(np.round(i2 * 255), 0, 255).astype(np.uint8))
+    write_png(str(d / "frame1.png"),
+              np.clip(np.round(i1 * 255), 0, 255).astype(np.uint8))
+    write_png(str(d / "frame2.png"),
+              np.clip(np.round(i2 * 255), 0, 255).astype(np.uint8))
     return str(d)
 
 

@@ -1,6 +1,6 @@
 """Conv-based pyramid resampling (ops/resample.py) vs the original
-shift/interleave formulations (flow/dense.py) — same stencils, TPU-friendly
-lowering (see the module docstring for the measured relayout costs)."""
+shift/interleave formulations (flow/dense.py) — same stencils, lowered as
+convolutions (see the module docstring)."""
 
 import numpy as np
 import pytest

@@ -1,7 +1,7 @@
 """The load-bearing geometry checks: the synthetic renderer, the analytic
 flow model, and the estimation pipeline must all agree.
 
-This is the TPU-native analog of the reference's ground-truth-instrumented
+This is the analog of the reference's ground-truth-instrumented
 synthetic harness (SURVEY.md §4): the renderer produces exact geometry, the
 differential flow model is a first-order approximation of it, and the solver
 chain must recover the generating motion from the exact flow.
